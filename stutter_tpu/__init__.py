@@ -1,15 +1,15 @@
-"""stutter_tpu: a TPU-native (JAX/XLA/Pallas) speech-dysfluency recognition framework.
+"""stutter_tpu: a JAX speech-dysfluency recognition framework.
 
 A from-scratch rebuild of the capabilities of
 kishormb/Recognizing-Speech-Dysfluencies-in-Stuttering (see SURVEY.md):
 audio denoising, librosa-parity DSP feature extraction, dysfluency
-classification (MLP/CNN/CNN-BiLSTM on TPU; RF/SVM host baselines),
-evaluation/reporting, caching, and serving — redesigned TPU-first.
+classification (jitted MLP/CNN/CNN-BiLSTM/transformer heads; RF/SVM host
+baselines), evaluation/reporting, caching, and serving.
 
 Public surface (lazily imported; `import stutter_tpu as st`):
 
   st.PipelineConfig, st.FEATURES_149, st.FEATURES_334   configuration
-  st.extract_features_149_batch / _numpy                 the TPU front end
+  st.extract_features_149_batch / _numpy                 the device front end
   st.denoise_clips / st.denoise_batch                    spectral gate
   st.Predictor / st.SeqPredictor / st.EnsemblePredictor  serving
   st.run_cv / st.run_before_after / st.preprocess        pipeline drivers

@@ -1,7 +1,7 @@
 """Command-line interface — the framework's user surface.
 
 The reference's UI is three Streamlit apps (`streamlit run main.py`, SURVEY.md
-C22/C24); the TPU framework exposes the same capabilities as subcommands:
+C22/C24); this framework exposes the same capabilities as subcommands:
 
   python -m stutter_tpu preprocess   --root WORKDIR     # clean + QC csv
   python -m stutter_tpu extract      --root WORKDIR     # corpus feature cache
@@ -18,6 +18,7 @@ BASELINE.json.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -37,7 +38,7 @@ def main(argv: list[str] | None = None) -> int:
 
     p = sub.add_parser("preprocess", help="denoise corpus + per-file QC analysis")
     add_root(p)
-    p = sub.add_parser("extract", help="(re)generate the feature cache on TPU")
+    p = sub.add_parser("extract", help="(re)generate the feature cache")
     add_root(p)
     p.add_argument("--suffix", default="clean", choices=["raw", "clean", "both"])
     p = sub.add_parser("train", help="5-fold CV table + persist production model")
@@ -139,22 +140,32 @@ def main(argv: list[str] | None = None) -> int:
 
     args = ap.parse_args(argv)
 
+    if args.cmd == "bench":
+        # bench.py runs in a child process that must own the device: this
+        # process never initializes a JAX backend before handing over
+        import subprocess
+
+        return subprocess.call([sys.executable, os.path.join(os.path.dirname(__file__), "..", "bench.py")])
+
+    from stutter_tpu import runtime
+
+    try:
+        info = runtime.start()
+    except runtime.DeviceError as e:
+        print(f"stutter_tpu: {e}", file=sys.stderr)
+        return 2
+    print(f"stutter_tpu: platform={info['platform']} device_kind={info['kind']} "
+          f"devices={info['count']}", file=sys.stderr)
+
     from stutter_tpu.config import FEATURES_149, FEATURES_334, PipelineConfig
 
-    if args.cmd != "bench":
-        import dataclasses
-
-        from stutter_tpu.config import DenoiseConfig
-
-        feats = FEATURES_334 if getattr(args, "variant", "149") == "334" else FEATURES_149
-        cfg = PipelineConfig(features=feats)
-        if getattr(args, "prop_decrease", None) is not None:
-            cfg = dataclasses.replace(
-                cfg,
-                denoise=dataclasses.replace(
-                    cfg.denoise, prop_decrease=args.prop_decrease
-                ),
-            )
+    feats = FEATURES_334 if args.variant == "334" else FEATURES_149
+    cfg = PipelineConfig(features=feats)
+    if args.prop_decrease is not None:
+        cfg = dataclasses.replace(
+            cfg,
+            denoise=dataclasses.replace(cfg.denoise, prop_decrease=args.prop_decrease),
+        )
 
     if args.cmd == "preprocess":
         from stutter_tpu.pipeline import preprocess, setup_logging
@@ -199,8 +210,6 @@ def main(argv: list[str] | None = None) -> int:
                 f'loss={m["test_loss"]:.4f}'
             )
     elif args.cmd == "train-seq":
-        import dataclasses
-
         from stutter_tpu.train.seq_pipeline import default_train_cfg, run_seq
 
         tc = default_train_cfg(args.arch, args.epochs)
@@ -246,10 +255,6 @@ def main(argv: list[str] | None = None) -> int:
                       batch_max=args.batch_max)
         print(f"serving on {args.host}:{args.port} (POST /predict, /stream; GET /healthz)")
         httpd.serve_forever()
-    elif args.cmd == "bench":
-        import subprocess
-
-        return subprocess.call([sys.executable, os.path.join(os.path.dirname(__file__), "..", "bench.py")])
     return 0
 
 

@@ -3,7 +3,7 @@
 The reference cleans every clip on CPU with noisereduce.reduce_noise
 (ref: pipeline1.py:140 with prop_decrease=1.0; main.py:657 / main1.py:605 with
 prop_decrease=0.8) followed by librosa.util.normalize (peak) and a 16-bit WAV
-write (pipeline1.py:141-142).  This module is the TPU-native equivalent: the
+write (pipeline1.py:141-142).  This module is the on-device equivalent: the
 whole gate — STFT, bidirectional IIR time smoothing, sigmoid threshold mask,
 separable 2-D mask smoothing, attenuation, iSTFT overlap-add, peak
 normalization — is one batched jitted computation.
@@ -12,7 +12,8 @@ Algorithm parity notes (vs noisereduce.SpectralGateNonStationary defaults):
   * STFT/iSTFT: n_fft=1024, hop=256, periodic Hann, center=True, constant pad.
   * The signal is zero-padded by 30000 samples on each side before gating and
     cropped after (noisereduce's chunk padding); trailing batch padding
-    beyond a clip is zeros, which this gate maps to zeros, so batched output
+    beyond a clip is zeros, which this gate maps to zeros, and the backward
+    smoothing pass starts at each clip's own final frame, so batched output
     equals per-clip output.
   * Time smoothing: filtfilt([b], [1, b-1]) with b from
     time_constant_s=2.0 s, steady-state (x[0]) initial conditions, realized
@@ -59,20 +60,24 @@ def _mask_smoothing_profiles(cfg: DenoiseConfig) -> tuple[np.ndarray, np.ndarray
     ).astype(np.float32)
 
 
-def _iir_smooth_bidirectional(x: jnp.ndarray, b: float) -> jnp.ndarray:
+def _iir_smooth_bidirectional(x: jnp.ndarray, b: float, last: jnp.ndarray) -> jnp.ndarray:
     """filtfilt([b], [1, b-1], x, axis=time) on [B, T, F] with steady-state init.
 
     y[t] = b*x[t] + (1-b)*y[t-1], y[-1] = x[0]; then the same backward.
     First-order affine recurrences composed with associative_scan (log-depth
-    on TPU instead of a length-T serial scan).
-    """
+    instead of a length-T serial scan).
 
-    def directional(x):
-        a = jnp.full_like(x, 1.0 - b)
-        u = b * x
-        # steady-state initial condition: y[0] = x[0]
-        u = u.at[:, 0].set(x[:, 0])
-        a = a.at[:, 0].set(0.0)
+    last [B]: each row's final frame.  The backward pass starts there, as
+    filtfilt over that row alone would; frames after it (batch padding) come
+    out as garbage the caller discards.
+    """
+    T = x.shape[1]
+
+    def directional(x, start):
+        # steady-state initial condition at each row's start: y[s] = x[s]
+        first = (jnp.arange(T)[None, :] == start[:, None])[:, :, None]
+        a = jnp.where(first, 0.0, 1.0 - b)
+        u = jnp.where(first, x, b * x)
 
         def combine(lhs, rhs):
             a1, u1 = lhs
@@ -82,8 +87,9 @@ def _iir_smooth_bidirectional(x: jnp.ndarray, b: float) -> jnp.ndarray:
         _, y = jax.lax.associative_scan(combine, (a, u), axis=1)
         return y
 
-    fwd = directional(x)
-    return directional(fwd[:, ::-1])[:, ::-1]
+    zero = jnp.zeros(x.shape[0], jnp.int32)
+    fwd = directional(x, zero)
+    return directional(fwd[:, ::-1], (T - 1 - last).astype(jnp.int32))[:, ::-1]
 
 
 def _smooth_mask(mask: jnp.ndarray, cfg: DenoiseConfig) -> jnp.ndarray:
@@ -131,43 +137,17 @@ def _istft_ola(spec: jnp.ndarray, n_fft: int, hop: int) -> jnp.ndarray:
     return total / jnp.asarray(denom)[None, :]
 
 
-# The fused gate keeps every per-clip buffer VMEM-resident, so its scoped
-# VMEM footprint grows with the chunk count: ~21.8 KB/chunk (measured from
-# the compiler's 19.15 MiB report at 879 chunks) against a 16 MiB scoped
-# limit on v5e.  Auto-routing therefore falls back to the XLA gate for clips
-# whose chunk count exceeds this bound (the 10.24 s bucket: 879 chunks OOMs;
-# the 6.1 s bucket: 623 chunks fits).  An explicit pallas=True is honored
-# regardless (tests / benchmarks).
-PALLAS_GATE_MAX_CHUNKS = 720
-
-
-def _use_pallas_gate(pallas: bool | None, n_chunks: int) -> bool:
-    if pallas is not None:
-        return pallas
-    if n_chunks > PALLAS_GATE_MAX_CHUNKS:
-        return False
-    return jax.default_backend() not in ("cpu", "gpu")
-
-
-@partial(jax.jit, static_argnames=("cfg", "pallas", "interpret"))
+@partial(jax.jit, static_argnames=("cfg",))
 def denoise_batch(
     audio: jnp.ndarray,
     lengths: jnp.ndarray,
     cfg: DenoiseConfig = DenoiseConfig(),
-    pallas: bool | None = None,
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """audio [B, N] (zero-padded), lengths [B] -> denoised, peak-normalized [B, N].
 
     Matches clean_audio_and_cache's compute (ref: pipeline1.py:126-146) minus
     the file I/O: spectral gate at cfg.prop_decrease, then peak normalization
     over each clip's valid samples.
-
-    On TPU (or with pallas=True) the whole gate runs in the fused VMEM kernel
-    (ops/pallas_denoise.py: chunk-DFT STFT + IIR + mask + iSTFT, 22 -> ~a few
-    ms/batch-64); elsewhere the XLA composition below.  `pallas`/`interpret`
-    mirror ops.frontend's kernel-path controls (interpret=True runs the
-    kernel on the CPU fixture for tests).
     """
     B, N = audio.shape
     hop, n_fft = cfg.hop_length, cfg.n_fft
@@ -176,34 +156,28 @@ def denoise_batch(
     buf_len = -(-(N + 2 * PAD) // hop) * hop
     x = jnp.pad(audio, ((0, 0), (PAD, buf_len - N - PAD)))
 
-    if _use_pallas_gate(pallas, (buf_len + n_fft) // hop):
-        from stutter_tpu.ops.pallas_denoise import spectral_gate_pallas
+    frames = frame(x, n_fft, hop)  # [B, T, n_fft], centered constant-pad
+    window = jnp.asarray(fb.hann(n_fft))
+    spec = jnp.fft.rfft(frames * window[None, None, :], axis=-1)  # [B, T, F]
+    mag = jnp.abs(spec)
 
-        chunks = jnp.pad(x, ((0, 0), (n_fft // 2, n_fft // 2))).reshape(
-            B, -1, hop
-        )
-        ola = spectral_gate_pallas(chunks, n_fft, hop, cfg, interpret=interpret)
-        y = ola.reshape(B, -1)
-    else:
-        frames = frame(x, n_fft, hop)  # [B, T, n_fft], centered constant-pad
-        window = jnp.asarray(fb.hann(n_fft))
-        spec = jnp.fft.rfft(frames * window[None, None, :], axis=-1)  # [B, T, F]
-        mag = jnp.abs(spec)
+    t_frames = cfg.time_constant_s * cfg.sample_rate / float(hop)
+    b = (np.sqrt(1 + 4 * t_frames**2) - 1) / (2 * t_frames**2)
+    # a clip's own final frame: where filtfilt over that clip alone would
+    # start its backward pass (its trailing batch padding lies beyond it)
+    last = (lengths + 2 * PAD) // hop
+    smooth = _iir_smooth_bidirectional(mag, float(b), last)
 
-        t_frames = cfg.time_constant_s * cfg.sample_rate / float(hop)
-        b = (np.sqrt(1 + 4 * t_frames**2) - 1) / (2 * t_frames**2)
-        smooth = _iir_smooth_bidirectional(mag, float(b))
+    above = jnp.where(
+        smooth > 0, (mag - smooth) / jnp.where(smooth > 0, smooth, 1.0), 0.0
+    )
+    mask = jax.nn.sigmoid(
+        (above - cfg.thresh_n_mult_nonstationary) * cfg.sigmoid_slope_nonstationary
+    )
+    mask = _smooth_mask(mask, cfg)
+    mask = mask * cfg.prop_decrease + (1.0 - cfg.prop_decrease)
 
-        above = jnp.where(
-            smooth > 0, (mag - smooth) / jnp.where(smooth > 0, smooth, 1.0), 0.0
-        )
-        mask = jax.nn.sigmoid(
-            (above - cfg.thresh_n_mult_nonstationary) * cfg.sigmoid_slope_nonstationary
-        )
-        mask = _smooth_mask(mask, cfg)
-        mask = mask * cfg.prop_decrease + (1.0 - cfg.prop_decrease)
-
-        y = _istft_ola(spec * mask, n_fft, hop)
+    y = _istft_ola(spec * mask, n_fft, hop)
     # OLA sample m corresponds to x[m - n_fft//2] (frame t is placed at t*hop
     # but covers x[t*hop - n_fft//2 : ...]); x[n] == clip sample n - PAD.
     y = y[:, n_fft // 2 + PAD : n_fft // 2 + PAD + N]

@@ -3,9 +3,9 @@
 The reference computes RF built-in importances (pipeline1.py:605-618) and
 sklearn permutation_importance with n_repeats=10 (main.py:976-989) — the
 latter is a HOT LOOP of 10 x n_features shuffled model evaluations on CPU.
-Here the whole (features x repeats) grid is evaluated on TPU in one vmapped
-call: for the 149-feature corpus that is 1,490 batched forward passes — a
-single [repeats*features, N, D] tensor through the MXU.
+Here the whole (features x repeats) grid is evaluated on the device in one
+vmapped call: for the 149-feature corpus that is 1,490 batched forward
+passes — a single [repeats*features, N, D] batched matmul chain.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 from stutter_tpu.train.trainer import FittedMLP, predict_proba_grid
 
 
-def permutation_importance_tpu(
+def permutation_importance_jax(
     fitted: FittedMLP,
     X: np.ndarray,
     y: np.ndarray,

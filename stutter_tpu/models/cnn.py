@@ -1,6 +1,6 @@
 """CNN classifier over log-mel spectrograms (BASELINE.json config #2).
 
-A TPU-idiomatic sequence head the reference lacks (its models only ever see
+A jitted sequence head the reference lacks (its models only ever see
 149-dim statistics vectors): 2-D convolutions over (time, mel) with
 stride-2 time downsampling, masked global average pooling, dense head.
 Pure-JAX pytree params in the same init/apply style as models.mlp so the
@@ -67,4 +67,4 @@ def apply_cnn(params: dict, spec: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray
     pooled = jnp.sum(x * w, axis=(1, 2)) / jnp.maximum(
         jnp.sum(w, axis=(1, 2)) * x.shape[2], 1.0
     )
-    return pooled @ params["w_out"] + params["b_out"]
+    return jnp.matmul(pooled, params["w_out"], precision=HIGHEST) + params["b_out"]

@@ -107,4 +107,4 @@ def apply_cnn_bilstm(params: dict, feats: jnp.ndarray, mask: jnp.ndarray) -> jnp
 
     w = mask.astype(h.dtype)[:, :, None]
     pooled = jnp.sum(h * w, axis=1) / jnp.maximum(jnp.sum(w, axis=1), 1.0)
-    return pooled @ params["w_out"] + params["b_out"]
+    return jnp.matmul(pooled, params["w_out"], precision=HIGHEST) + params["b_out"]

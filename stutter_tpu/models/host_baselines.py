@@ -1,10 +1,10 @@
 """Host-side parity baselines: RandomForest / SVM / sklearn-MLP / soft-vote.
 
-Tree ensembles and kernel SVMs do not map to the MXU; the reference's exact
+Tree ensembles and kernel SVMs do not map to matrix units; the reference's exact
 model zoo (ref: pipeline1.py:495-499, main.py:897-913) is retained host-side
-for accuracy parity while the TPU-native heads (stutter_tpu.models.*,
+for accuracy parity while the jitted heads (stutter_tpu.models.*,
 trained by stutter_tpu.train.trainer) are the production path.  Wrapped so
-the pipeline driver can mix host and TPU models behind one interface.
+the pipeline driver can mix host and device models behind one interface.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Jitted MLP classifier — the TPU-native replacement for sklearn's
+"""Jitted MLP classifier — the JAX replacement for sklearn's
 MLPClassifier (ref: pipeline1.py:497, main.py:902-905).
 
 Pure-JAX pytree params (no framework dependency) so models vmap cleanly over
 random seeds and CV folds: the whole 5-fold x multi-seed training grid runs
-as one jitted computation on the MXU (see stutter_tpu.train.trainer).
+as one jitted computation (see stutter_tpu.train.trainer).
 """
 
 from __future__ import annotations
@@ -12,6 +12,10 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
+
+# Like every parity-path matmul: an unpinned float32 matmul may run in TF32 on
+# a GPU (~3 decimal digits).
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def init_mlp(
@@ -42,7 +46,7 @@ def apply_mlp(
     n_layers = len(params) // 2
     h = x
     for i in range(n_layers):
-        h = h @ params[f"w{i}"] + params[f"b{i}"]
+        h = jnp.matmul(h, params[f"w{i}"], precision=HIGHEST) + params[f"b{i}"]
         if i < n_layers - 1:
             h = jax.nn.relu(h)
             if train and dropout_rate > 0.0 and rng is not None:

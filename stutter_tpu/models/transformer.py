@@ -1,6 +1,6 @@
 """Transformer encoder classifier over log-mel spectrograms (r3 member).
 
-A third TPU-idiomatic sequence head the reference lacks (its models only see
+A third jitted sequence head the reference lacks (its models only see
 149-dim statistics vectors — /root/reference/pipeline1.py:216-230): a conv
 stem downsamples time 4x, fixed sinusoidal positions are added, and a small
 pre-LN transformer encoder attends over valid frames (padding keys masked),
@@ -9,8 +9,8 @@ followed by masked mean pooling and a dense head.
 Same pytree init/apply contract as models.cnn / models.cnn_bilstm, so the
 vmapped fold x seed training grid (train/seq_trainer.train_seq_grid) and the
 serving stack (SeqPredictor / EnsemblePredictor) apply unchanged.  Attention
-is O(T'^2) with T' = 79 after the stem — trivially VMEM-resident; everything
-lowers to MXU matmuls with static shapes.
+is O(T'^2) with T' = 79 after the stem — tiny; everything lowers to
+matmuls with static shapes.
 """
 
 from __future__ import annotations
@@ -140,4 +140,4 @@ def apply_transformer(params: dict, spec: jnp.ndarray, mask: jnp.ndarray) -> jnp
     x = _layernorm(x, params["ln_f_g"], params["ln_f_b"])
     w = m.astype(x.dtype)[:, :, None]
     pooled = jnp.sum(x * w, axis=1) / jnp.maximum(jnp.sum(w, axis=1), 1.0)
-    return pooled @ params["w_out"] + params["b_out"]
+    return jnp.matmul(pooled, params["w_out"], precision=HIGHEST) + params["b_out"]

@@ -2,7 +2,7 @@
 //
 // The reference's per-clip decode (librosa.load -> soundfile C library,
 // ref: pipeline1.py:100-106) is the host-side bottleneck once feature
-// extraction runs on TPU. This library decodes a whole batch of WAV files
+// extraction runs on the device. This library decodes a whole batch of WAV files
 // into a caller-provided [B, N] float32 buffer with a thread pool, so the
 // host can keep a device-feed pipeline saturated (decode of batch k+1
 // overlaps device compute of batch k; see stutter_tpu/io/native.py).

@@ -1,4 +1,4 @@
-"""Batched chroma_stft with signal-dependent tuning estimation, on TPU.
+"""Batched chroma_stft with signal-dependent tuning estimation.
 
 This is the parity-hard op (SURVEY.md §7): librosa.feature.chroma_stft
 estimates a per-signal tuning offset via piptrack (parabolic-interpolation
@@ -6,19 +6,18 @@ peak picking on the power spectrogram), a median-magnitude threshold, and a
 100-bin histogram of pitch residuals; the chroma filterbank is then built for
 that tuning.
 
-TPU-native design decisions:
+Design decisions:
   * Candidates are local maxima along frequency, so no two are adjacent; any
     4-bin group holds at most 2. Peak compaction is therefore EXACT with pure
-    vector ops (group-wise cumsum + select), no sort/top_k/scatter — the
-    na(i)ve lax.top_k formulation costs ~100 ms/batch on v5e, this costs ~2 ms.
+    vector ops (group-wise cumsum + select), no sort/top_k/scatter.
   * The pitch-residual log2 is decomposed into a host-precomputed f64 table
-    over FFT bins plus a log2(1+shift/bin) series: TPU's log2 transcendental
-    has ~1e-3 abs error at these magnitudes, enough to flip histogram bins.
+    over FFT bins plus a log2(1+shift/bin) series: a float32 device log2 can
+    be off by enough at these magnitudes to flip histogram bins.
   * The tuning estimate is always a histogram bin edge (resolution 0.01), so
     the 100 possible chroma filterbanks are precomputed host-side into a
     [100, n_chroma, F] table and selected by bin index.
-  * The candidate-magnitude median uses sort + order-statistic selection with
-    +inf fill (exact np.median semantics).
+  * The candidate-magnitude median is an exact radix selection
+    (ops.masked.masked_median, np.median semantics).
 
 Ref call chain: pipeline1.py:227 -> librosa chroma_stft/estimate_tuning/
 piptrack/pitch_tuning/filters.chroma.
@@ -77,8 +76,7 @@ def piptrack_candidates(
     [B,T,M][, aux [B,T,M]]) where M = 2 * ceil(band/4); the compaction is
     exact (see module docstring).  aux_table, if given, is a per-FFT-bin [F]
     value compacted alongside — this keeps per-candidate table lookups
-    gather-free (TPU gathers of millions of elements are ~20x the cost of
-    the whole candidate computation).
+    gather-free.
     """
     S = power  # piptrack treats its S input as magnitude; chroma passes power.
     B, T, F = S.shape
@@ -164,8 +162,7 @@ def estimate_tuning_bin(
     # pitch_tuning residual: mod(12*log2(pitch/27.5), 1), wrapped to [-0.5, 0.5).
     #   12*log2((bin+shift)*sr/(n_fft*27.5)) mod 1
     #     = [12*log2(bin*sr/(n_fft*27.5)) mod 1]  (exact f64 host table,
-    #       compacted per candidate inside piptrack -- avoids a 6M-element
-    #       device gather that costs ~20x the whole candidate computation)
+    #       compacted per candidate inside piptrack -- no device gather)
     #     + 12*log2(1 + shift/bin)                (tiny u: fast-converging series)
     r_table = _residual_table(sr, n_fft, power.shape[-1], n_chroma)
     bin_idx, shift, mag, valid, r_base = piptrack_candidates(
@@ -208,83 +205,6 @@ def estimate_tuning_bin(
     # librosa returns tuning 0.0 when no candidates exist -> bin of 0.0
     zero_bin = n_bins // 2
     return jnp.where(has_any, jnp.argmax(hist, axis=-1).astype(jnp.int32), zero_bin)
-
-
-def tuning_bin_from_candidates(
-    mags: jnp.ndarray, idxm: jnp.ndarray, n_bins: int = 100,
-    compacted: bool = False,
-) -> jnp.ndarray:
-    """Candidate arrays [B, T, W] -> [B] int32 tuning bin.
-
-    mags: interpolated candidate magnitudes (0 at non-candidates); idxm:
-    residual histogram bin 0..n_bins-1 at candidates, -1 elsewhere — as
-    emitted by the fused spectromel Pallas kernel (ops/pallas_spectromel.py),
-    which computes the piptrack candidates while the power spectrogram is in
-    VMEM.  This XLA tail does what cannot ride along in the kernel without
-    serializing its grid (median + histogram are per-clip loops):
-
-      * exact 4->2 group compaction (local maxima are never adjacent, so any
-        4 consecutive bins hold <= 2 candidates) halves the array the median
-        and histogram sweep — skipped with compacted=True, where the kernel
-        already emitted compacted slot arrays (its MXU pack GEMMs);
-      * exact masked median via the fused dual-rank radix select;
-      * histogram via a FACTORIZED one-hot batched matmul: bin = 10*h + l,
-        so counts[b,h,l] = sum_n oh_h[b,n,h] * oh_l[b,n,l] — two [B,N,10]
-        bf16 one-hots and one MXU contraction (f32 accumulation keeps counts
-        exact) instead of n_bins compare-and-sum passes over [B, N].
-    """
-    B, T, W = mags.shape
-
-    if compacted:
-        mag_c = mags.reshape(B, -1)
-        idx_c = jnp.round(idxm).astype(jnp.int32).reshape(B, -1)
-        cand_c = idx_c >= 0
-        med = masked_median(mag_c, cand_c)
-        sel = cand_c & (mag_c >= med[:, None])
-        return _histogram_argmax(idx_c, sel, n_bins)
-
-    cand = idxm >= 0
-
-    # exact 4->2 compaction (W is a multiple of 4 by construction)
-    def compact4(x, sel, fill):
-        xg = x.reshape(B, T, W // 4, 4)
-        sg = sel.reshape(B, T, W // 4, 4)
-        ci = sg.astype(jnp.int32)
-        cs = jnp.cumsum(ci, axis=-1) - ci
-        first = sg & (cs == 0)
-        second = sg & (cs == 1)
-        pick = lambda s: jnp.sum(jnp.where(s, xg, 0), axis=-1)
-        out = jnp.stack([pick(first), pick(second)], axis=-1).reshape(B, T, W // 2)
-        ok = jnp.stack([jnp.any(first, -1), jnp.any(second, -1)], axis=-1)
-        return jnp.where(ok.reshape(B, T, W // 2), out, fill)
-
-    mag_c = compact4(mags, cand, 0.0).reshape(B, -1)
-    idx_c = compact4(idxm.astype(jnp.int32), cand, -1).reshape(B, -1)
-    cand_c = idx_c >= 0
-
-    med = masked_median(mag_c, cand_c)
-    sel = cand_c & (mag_c >= med[:, None])
-    return _histogram_argmax(idx_c, sel, n_bins)
-
-
-def _histogram_argmax(idx_c: jnp.ndarray, sel: jnp.ndarray, n_bins: int) -> jnp.ndarray:
-    """[B, N] int32 bins + select mask -> [B] argmax of the factorized
-    one-hot MXU histogram (librosa no-candidate fallback = middle bin)."""
-    B = idx_c.shape[0]
-    h = jnp.clip(idx_c // 10, 0, 9)
-    l = idx_c - h * 10
-    tens = jnp.arange(10, dtype=jnp.int32)
-    # int8 one-hots ride the MXU's s8xs8->s32 path: exact counts at half the
-    # HBM materialization of bf16 one-hots
-    oh_h = ((h[:, :, None] == tens) & sel[:, :, None]).astype(jnp.int8)
-    oh_l = (l[:, :, None] == tens).astype(jnp.int8)
-    hist = jnp.einsum(
-        "bnh,bnl->bhl", oh_h, oh_l, preferred_element_type=jnp.int32
-    ).reshape(B, 100)[:, :n_bins]
-    has_any = jnp.any(sel, axis=-1)
-    return jnp.where(
-        has_any, jnp.argmax(hist, axis=-1).astype(jnp.int32), n_bins // 2
-    )
 
 
 def chroma_from_power(

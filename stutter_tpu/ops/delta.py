@@ -28,9 +28,8 @@ def sg_deltas(
 
     Output rows >= n_valid are garbage and must be masked by the caller.
 
-    Gather-free: TPU gathers (take_along_axis) at these shapes measured ~4 ms
-    per 256-clip batch; the dynamic last-edge window select and scatter-back
-    are instead tiny one-hot einsums that ride the MXU, shared across orders.
+    Gather-free: the dynamic last-edge window select and scatter-back are
+    tiny one-hot einsums, shared across orders.
     """
     half = width // 2
     B, T, C = x.shape
@@ -60,8 +59,9 @@ def sg_deltas(
         interior = sum(float(ops.interior[j]) * xp[:, j : j + T] for j in range(width))
 
         # First-edge rows (static position 0..half-1) from the first frames.
-        # HIGHEST precision: TPU matmul defaults to bf16, which costs ~1e-4
-        # rel error on O(500) MFCC values — outside the parity budget.
+        # HIGHEST precision: an unpinned float32 matmul may run in TF32 on a
+        # GPU, which costs ~1e-4 rel error on O(500) MFCC values — outside the
+        # parity budget.
         first = jnp.einsum("ew,bwc->bec", jnp.asarray(ops.first), x[:, :width], precision=HI)
         y = jnp.concatenate([first, interior[:, half:]], axis=1)
 

@@ -1,4 +1,4 @@
-"""Host-side constant construction for the TPU front end.
+"""Host-side constant construction for the device front end.
 
 All filterbanks and linear operators are computed once in float64 NumPy at
 trace time and baked into the jitted computation as constants: mel filterbank,

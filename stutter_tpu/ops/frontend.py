@@ -1,4 +1,4 @@
-"""Batched 149-dim feature extraction on TPU — the framework's hot path.
+"""Batched 149-dim feature extraction — the framework's hot path.
 
 Composes the spectral / delta / chroma ops into the reference's canonical
 149-dim feature contract (ref: pipeline1.py:206-265):
@@ -23,51 +23,18 @@ import numpy as np
 from stutter_tpu.ops.chroma import chroma_from_power, estimate_tuning_bin
 from stutter_tpu.ops.delta import sg_deltas
 from stutter_tpu.ops.masked import frame_mask, masked_mean_std
-from stutter_tpu.ops.spectral import (
-    db_from_mel,
-    mel_power_to_db,
-    mfcc_from_db,
-    power_spectrogram,
-)
+from stutter_tpu.ops.spectral import mel_power_to_db, mfcc_from_db, power_spectrogram
 
 # Sample-count buckets (multiples of hop=512) covering 0.45-10.1 s at 16 kHz.
 DEFAULT_BUCKETS = (24576, 49152, 98304, 163840)
 
 
-def _use_pallas(pallas: bool | None) -> bool:
-    """Kernel-path gate: None = auto (TPU only); True/False force (True on a
-    CPU backend requires interpret=True at the call site)."""
-    if pallas is not None:
-        return pallas
-    return jax.default_backend() not in ("cpu", "gpu")
-
-
-def spect_mel_db(audio, lengths, sr, n_fft, hop_length, n_mels, n_chroma=12,
-                 pallas=None, interpret=False):
-    """(masked power [B,T,K], mask [B,T], log-mel dB [B,T,M], tuning bin [B]
-    or None) for the batch.
-
-    On TPU this runs the fused Pallas chunk-DFT spectromel kernel — one VMEM
-    pass produces the masked power spectrogram, the mel contraction, AND the
-    per-clip librosa tuning bin (ops/pallas_spectromel.py); elsewhere the XLA
-    reference composition (tuning returned as None; callers fall back to
-    ops.chroma.estimate_tuning_bin).  The 149-dim TPU path bypasses this
-    entirely (extract_features_149_batch uses the kernel's with_stats mode);
-    this entry remains for the 334-variant and mel consumers."""
-    if _use_pallas(pallas):
-        from stutter_tpu.ops.pallas_spectromel import spectromel_pallas
-
-        power, mel, tb = spectromel_pallas(
-            audio, lengths, sr=sr, n_fft=n_fft, hop_length=hop_length,
-            n_mels=n_mels, n_chroma=n_chroma, with_tuning=True,
-            interpret=interpret,
-        )
-        mask = frame_mask(lengths, hop_length, power.shape[1])
-        return power, mask, db_from_mel(mel, mask), tb
+def spect_mel_db(audio, lengths, sr, n_fft, hop_length, n_mels):
+    """(masked power [B,T,K], mask [B,T], log-mel dB [B,T,M]) for the batch."""
     power = power_spectrogram(audio, n_fft, hop_length)
     mask = frame_mask(lengths, hop_length, power.shape[1])
     power = jnp.where(mask[:, :, None], power, 0.0)
-    return power, mask, mel_power_to_db(power, mask, sr, n_fft, n_mels), None
+    return power, mask, mel_power_to_db(power, mask, sr, n_fft, n_mels)
 
 
 def _stat_pair(x: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
@@ -78,10 +45,7 @@ def _stat_pair(x: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "sr", "n_fft", "hop_length", "n_mels", "n_mfcc", "n_chroma",
-        "pallas", "interpret",
-    ),
+    static_argnames=("sr", "n_fft", "hop_length", "n_mels", "n_mfcc", "n_chroma"),
 )
 def extract_features_149_batch(
     audio: jnp.ndarray,
@@ -92,8 +56,6 @@ def extract_features_149_batch(
     n_mels: int = 128,
     n_mfcc: int = 20,
     n_chroma: int = 12,
-    pallas: bool | None = None,
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """audio [B, N] (zero-padded, N multiple of hop), lengths [B] -> [B, 149].
 
@@ -101,58 +63,19 @@ def extract_features_149_batch(
     corpus, SURVEY.md C6); callers with transcripts overwrite dims 144:149.
     Clips with fewer than 9 valid frames (< 0.26 s) return all-zero vectors,
     matching the reference's exception path (pipeline1.py:237-239).
-
-    `pallas`/`interpret` select the fused-kernel path explicitly (None = auto
-    by backend); pallas=True + interpret=True runs the kernel in interpreter
-    mode so multi-chip sharding of the FUSED path is testable on the CPU
-    device fixture.
     """
     n_valid = 1 + lengths // hop_length
-    if _use_pallas(pallas):
-        # Fully-fused TPU path: one Pallas kernel emits the masked power
-        # spectrogram, the complete MFCC/delta statistics (db -> DCT ->
-        # SavGol deltas -> masked mean/std, all in VMEM), and the compacted
-        # piptrack candidates for the tuning estimate.
-        from stutter_tpu.ops.pallas_spectromel import spectromel_pallas
-
-        power, stats, tb = spectromel_pallas(
-            audio, lengths, sr=sr, n_fft=n_fft, hop_length=hop_length,
-            n_mels=n_mels, n_mfcc=n_mfcc, n_chroma=n_chroma,
-            with_tuning=True, with_stats=True, interpret=interpret,
-        )
-        mask = frame_mask(lengths, hop_length, power.shape[1])
-        mfcc_stats = stats.reshape(audio.shape[0], 6 * n_mfcc)
-    else:
-        power, mask, db, tb = spect_mel_db(
-            audio, lengths, sr, n_fft, hop_length, n_mels, n_chroma
-        )
-        mf = mfcc_from_db(db, n_mfcc)
-        d1, d2 = sg_deltas(mf, n_valid, orders=(1, 2))
-        mfcc_stats = jnp.concatenate(
-            [_stat_pair(mf, mask), _stat_pair(d1, mask), _stat_pair(d2, mask)],
-            axis=-1,
-        )
-
-    if tb is None:
-        tb = estimate_tuning_bin(power, sr, n_fft, n_chroma=n_chroma)
-    if _use_pallas(pallas):
-        # Fused chroma-apply + stats kernel: the power spectrogram's only
-        # remaining HBM consumer reads it exactly once (the XLA chain below
-        # costs ~4 HBM passes over [B, T, K] + temps).
-        from stutter_tpu.ops.pallas_chroma import chroma_stats_pallas
-
-        ch_stats = chroma_stats_pallas(
-            power, tb, n_valid, sr=sr, n_fft=n_fft, n_chroma=n_chroma,
-            interpret=interpret,
-        )
-    else:
-        ch = chroma_from_power(power, tb, sr, n_fft, n_chroma)
-        ch_stats = _stat_pair(ch, mask)
-
+    power, mask, db = spect_mel_db(audio, lengths, sr, n_fft, hop_length, n_mels)
+    mf = mfcc_from_db(db, n_mfcc)
+    d1, d2 = sg_deltas(mf, n_valid, orders=(1, 2))
+    tb = estimate_tuning_bin(power, sr, n_fft, n_chroma=n_chroma)
+    ch = chroma_from_power(power, tb, sr, n_fft, n_chroma)
     feats = jnp.concatenate(
         [
-            mfcc_stats,
-            ch_stats,
+            _stat_pair(mf, mask),
+            _stat_pair(d1, mask),
+            _stat_pair(d2, mask),
+            _stat_pair(ch, mask),
             jnp.zeros((audio.shape[0], 5), jnp.float32),
         ],
         axis=-1,
@@ -176,12 +99,9 @@ _SHARDED_FNS: dict = {}
 
 def sharded_batch_fn(batch_fn, n_dev: int):
     """Wrap `batch_fn(audio [B,N], lengths [B]) -> [B,D]` in shard_map over a
-    1-D `data` mesh of n_dev devices, so each device runs its OWN instance of
-    the computation on its batch shard — including `pallas_call`s, which GSPMD
-    cannot partition inside a plain jit (a custom call has no partitioning
-    rule; XLA would replicate or gather instead of running one kernel per
-    chip).  Per-clip independence means no collectives are needed
-    (SURVEY.md §2.3)."""
+    1-D `data` mesh of n_dev devices, so each device runs its own instance of
+    the computation on its batch shard.  Per-clip independence means no
+    collectives are needed (SURVEY.md §2.3)."""
     try:
         key = (
             getattr(batch_fn, "func", batch_fn),
@@ -236,9 +156,9 @@ def run_bucketed(
                 batch[j, : len(y)] = y
                 lens[j] = len(y)
             if n_dev > 1:
-                # data-parallel extraction via shard_map: each chip runs its
-                # own kernel instance on its clip shard (no collectives);
-                # numpy operands let jit place each shard on its device
+                # data-parallel extraction via shard_map: each device runs
+                # the extractor on its clip shard (no collectives); numpy
+                # operands let jit place each shard on its device
                 # directly instead of staging through device 0
                 feats = sharded_batch_fn(batch_fn, n_dev)(batch, lens)
             else:

@@ -115,16 +115,13 @@ def extract_features_334_batch(
     """audio [B, N] (zero-padded, N multiple of 512), lengths [B] -> [B, 334]."""
     from stutter_tpu.ops.frontend import spect_mel_db
 
-    power, mask, db, tb = spect_mel_db(
-        audio, lengths, sr, n_fft, hop_length, n_mels, n_chroma
-    )
+    power, mask, db = spect_mel_db(audio, lengths, sr, n_fft, hop_length, n_mels)
     n_valid = 1 + lengths // hop_length
 
     mf = mfcc_from_db(db, n_mfcc)
     d1, d2 = sg_deltas(mf, n_valid, orders=(1, 2))
 
-    if tb is None:
-        tb = estimate_tuning_bin(power, sr, n_fft, n_chroma=n_chroma)
+    tb = estimate_tuning_bin(power, sr, n_fft, n_chroma=n_chroma)
     ch = chroma_from_power(power, tb, sr, n_fft, n_chroma)
 
     mag = jnp.sqrt(power)

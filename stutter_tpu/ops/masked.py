@@ -44,8 +44,8 @@ def masked_max(x: jnp.ndarray, mask: jnp.ndarray, axis, keepdims: bool = False) 
 def masked_median_sort(x: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
     """np.median(x[mask]) per row via full sort; x, mask: [B, N] -> [B].
 
-    Reference implementation; masked_median (radix bisection) is ~10x faster
-    on TPU for large N. Rows with no valid entries return 0.0.
+    Reference implementation for masked_median (radix bisection). Rows with
+    no valid entries return 0.0.
     """
     cnt = jnp.sum(mask, axis=-1)
     filled = jnp.where(mask, x, jnp.inf)
@@ -76,12 +76,10 @@ def masked_median(x: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
 
     Finds the two middle order statistics by 4-way digit search over the
     monotone uint32 image of f32, counting masked elements per step — O(16)
-    vector passes instead of an O(N log^2 N) device sort.  The step loop is
-    HBM-bound (each pass reads the whole [B, N] image; measured ~660 GB/s ≈
-    v5e speed-of-light), so 2-bit digits halve the median's wall time vs the
-    1-bit classic: 3 digit counts per pass cost VPU time that still fits
-    under the pass's HBM budget.  Both middle ranks are selected in the SAME
-    loop, so the data is swept 16x total, not 32x.
+    vector passes instead of an O(N log^2 N) device sort.  Each pass reads
+    the whole [B, N] image, so 2-bit digits halve the passes of the 1-bit
+    classic.  Both middle ranks are selected in the SAME loop, so the data
+    is swept 16x total, not 32x.
     """
     cnt = jnp.sum(mask, axis=-1)
     u = jnp.where(mask, _f32_to_ordered_u32(x), jnp.uint32(0xFFFFFFFF))

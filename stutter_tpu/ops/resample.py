@@ -1,14 +1,14 @@
 """On-device polyphase resampling (Kaiser-windowed sinc).
 
 The reference resamples every input to 16 kHz inside librosa.load (via soxr,
-ref: pipeline1.py:100-106).  Serving arbitrary-rate input on TPU needs an
+ref: pipeline1.py:100-106).  Serving arbitrary-rate input needs an
 on-device equivalent: this is a polyphase rational resampler with a
 Kaiser-windowed sinc prototype (beta=14.77, 'kaiser_best' quality — soxr HQ
 is not bit-reproducible anyway, and the corpus itself is already 16 kHz).
 
 The kernel is a gather + per-phase dot: for out sample n with phase
 p = (n*M) % L, y[n] = sum_k h_phase[p, k] * x[(n*M)//L - c + k] — static
-shapes, MXU/VPU friendly, batched over clips.
+shapes, batched over clips.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
-"""Batched STFT / mel / MFCC for TPU.
+"""Batched STFT / mel / MFCC.
 
 Framing uses the interleaved-reshape trick (hop | n_fft): the padded signal is
 cut into hop-sized chunks and a frame is the concatenation of n_fft/hop
 consecutive chunks — no gather, no materialized index matrix, XLA-friendly.
 
-Matmuls that feed the parity-critical path run at HIGHEST precision: TPU
-matmul defaults to bf16 inputs, which would blow the 1e-3 MAE budget.
+Matmuls that feed the parity-critical path run at HIGHEST precision: on a
+GPU an unpinned float32 matmul may run in TF32 (about three decimal digits),
+which would blow the 1e-3 MAE budget.
 
 Ref semantics being reproduced: librosa.stft (center=True, constant padding,
 periodic Hann), librosa.filters.mel (Slaney), librosa.power_to_db
@@ -51,10 +52,8 @@ from functools import lru_cache
 def _windowed_dft_mats(n_fft: int, win_length: int) -> tuple[np.ndarray, np.ndarray]:
     """Real-DFT cos/sin matrices with the Hann window folded in, [n_fft, n_freqs].
 
-    (frames * w) @ DFT == frames @ (diag(w) @ DFT); folding keeps one matmul
-    and lets the whole spectrogram ride the MXU at HIGHEST precision — on TPU
-    this is ~1e-7 relative error where jnp.fft.rfft's native lowering costs
-    enough to flip chroma tuning bins.
+    (frames * w) @ DFT == frames @ (diag(w) @ DFT); folding keeps the whole
+    spectrogram one matmul.
     """
     window = np.asarray(fb.hann(win_length), dtype=np.float64)
     if win_length < n_fft:
@@ -94,7 +93,7 @@ def _chunk_phase_tables(n_fft: int, hop: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _power_spectrogram_chunked(audio: jnp.ndarray, n_fft: int, hop: int, prec) -> jnp.ndarray:
-    """Shared-chunk DFT spectrogram: ~ratio x fewer MXU FLOPs than the framed GEMM.
+    """Shared-chunk DFT spectrogram: ~ratio x fewer FLOPs than the framed GEMM.
 
     Frames at hop h overlap ratio = n_fft/h times, but each hop-chunk's DFT
     contribution is frame-independent up to a phase: with Z_j[k] the n_fft-grid
@@ -139,27 +138,22 @@ def power_spectrogram(
     n_fft: int,
     hop_length: int,
     win_length: int | None = None,
-    method: str = "auto",
+    method: str = "fft",
 ) -> jnp.ndarray:
     """[B, N] -> [B, T, n_fft//2+1] power spectrogram |STFT|^2.
 
-    method: 'fft' (native rfft), 'matmul' (windowed DFT on the MXU, bf16x3),
-    'matmul_highest' (bf16x6), 'chunked' / 'chunked_highest' (shared-chunk
-    DFT + frequency-domain Hann — ratio x fewer FLOPs, see
-    _power_spectrogram_chunked), or 'auto' (chunked on TPU, fft elsewhere).
+    method: 'fft' (native rfft, the default), 'matmul' (windowed DFT matmul
+    at Precision.HIGH), 'matmul_highest', 'chunked' / 'chunked_highest'
+    (shared-chunk DFT + frequency-domain Hann — ratio x fewer FLOPs, see
+    _power_spectrogram_chunked).
 
-    Precision/parity tradeoff on the 888-clip golden corpus: 'matmul' (HIGH)
-    gives mean clip MAE 4.8e-5 with 886/888 under 1e-3 at ~2x the speed;
-    'matmul_highest' gives mean 1.4e-5 with 887/888.  The 1-2 outliers are
-    clips whose tuning histograms are exactly tied (top bins with counts of
-    2, or 11-vs-11) — librosa's own answer there is decided by fp rounding,
-    not by the algorithm.  'chunked' matches 'matmul' parity (886/888, mean
-    4.9e-5) at a fraction of the DFT cost.
+    Methods that round differently can flip the chroma tuning bin of a clip
+    whose tuning histogram is exactly tied (top bins with equal counts) —
+    librosa's own answer there is decided by fp rounding, not by the
+    algorithm.
     """
     if win_length is None:
         win_length = n_fft
-    if method == "auto":
-        method = "chunked" if jax.default_backend() not in ("cpu", "gpu") else "fft"
     if method.startswith("chunked"):
         if win_length != n_fft or n_fft % hop_length:
             raise ValueError("chunked spectrogram needs win_length == n_fft and hop | n_fft")

@@ -8,8 +8,8 @@ calls).  It serves three purposes:
      vectors in /root/reference/cache_features (the reference's de-facto
      regression data, SURVEY.md §4).
   2. CPU baseline: this is the single-threaded CPU pipeline that bench.py
-     measures the TPU path against.
-  3. Cross-check for the JAX/Pallas path (stutter_tpu.ops), which must match
+     measures the jitted path against.
+  3. Cross-check for the jitted JAX path (stutter_tpu.ops), which must match
      this module, which must match the golden cache.
 
 librosa itself is NOT a dependency; every filterbank/constant is derived here.

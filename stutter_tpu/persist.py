@@ -2,7 +2,7 @@
 
 The reference persists scaler/label-encoder/RF via joblib pickles
 (ref: main.py:889-890, 948; consumed at main1.py:983-985).  Here:
-  * TPU-native artifacts (scaler arrays, label classes, MLP param pytrees)
+  * Framework-native artifacts (scaler arrays, label classes, MLP param pytrees)
     are saved as .npz + JSON sidecars — portable, pickle-free.
   * sklearn baselines still round-trip through joblib with the reference's
     exact filenames (model_rf.pkl, scaler_after.pkl, label_encoder.pkl) so a

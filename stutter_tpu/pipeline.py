@@ -11,8 +11,8 @@ Three entry points mirror the reference's three app variants (SURVEY.md §0):
 Differences from the reference, by design:
   * No Streamlit: these are library functions with CSV/log artifacts; the CLI
     (stutter_tpu.cli) and serving (stutter_tpu.infer) are the interfaces.
-  * Feature extraction and QC metrics run batched on TPU.
-  * The TPU seed-ensembled MLP ("MLP-TPU") is always evaluated alongside the
+  * Feature extraction and QC metrics run batched on the device.
+  * The jitted seed-ensembled MLP ("MLP-TPU") is always evaluated alongside the
     host sklearn zoo; it is the production model.
 """
 
@@ -192,7 +192,7 @@ def extract_corpus(
     source_dir: str | None = None,
     decoder=None,
 ) -> tuple[np.ndarray, list[str], list[str], np.ndarray]:
-    """Batched TPU feature extraction over the corpus with cache reuse.
+    """Batched device feature extraction over the corpus with cache reuse.
 
     suffix='clean' reads clips from clear_dir (by stem); suffix='raw' decodes
     the original files.  `decoder` is an optional pluggable decode hook
@@ -336,7 +336,7 @@ def _evaluate_models(models: dict, X_tr, y_tr, X_te, y_te, set_name, out_dir, cl
     return metrics_rows, probs, preds
 
 
-class _TpuMLPAdapter:
+class _JaxMLPAdapter:
     """sklearn-like adapter over the jitted seed-ensembled MLP."""
 
     def __init__(self, cfg: MLPTrainConfig | None = None):
@@ -385,7 +385,7 @@ def run_before_after(root: str = ".", cfg: PipelineConfig = PipelineConfig()) ->
     )
 
     def zoo():
-        models = {"MLP-TPU": _TpuMLPAdapter()}
+        models = {"MLP-TPU": _JaxMLPAdapter()}
         try:
             from stutter_tpu.models.host_baselines import reference_model_zoo
 
@@ -544,7 +544,7 @@ def run_cv(
     def add_row(name, y_pred):
         final_rows.append(cv_row(name, y, y_pred, folds))
 
-    # TPU model: whole folds-x-seeds grid in one jit
+    # jitted model: whole folds-x-seeds grid in one jit
     t0 = time.time()
     mlp_cfg = MLPTrainConfig(n_classes=len(class_names))
     pred, proba = cross_validate_mlp(Xs, y, folds, mlp_cfg)
@@ -648,7 +648,7 @@ def run_cv(
                 log.info("%s(raw) CV done in %.1fs: acc=%.1f%%", arch,
                          time.time() - t0, final_rows[-1]["Accuracy (%)"])
 
-        # Nested weighted soft-vote over the TPU heads (75.2% CV measured on
+        # Nested weighted soft-vote over the jitted heads (75.2% CV measured on
         # the reference corpus vs 72.9 best single; the reference's UNIFORM
         # VotingClassifier loses to its own best member, main.py:905-913).
         # The optional MLP member re-runs on features of the seq clip subset
@@ -699,7 +699,7 @@ def run_cv(
             )
         # Persist the out-of-fold member probabilities: ensemble-combination
         # experiments (weight grids, stackers, calibration) then run OFFLINE
-        # in seconds instead of re-training every grid (~30 min of TPU).
+        # in seconds instead of re-training every grid (~30 min of device time).
         np.savez(
             os.path.join(out_dir, "oof_probas.npz"),
             y=y_seq,
@@ -790,7 +790,7 @@ def run_cv(
         ],
     )
 
-    # Train + persist the production TPU model on all data, plus the
+    # Train + persist the production jitted model on all data, plus the
     # reference-consumable pickle trio (ref: main.py:889-890, 948)
     fitted = fit_mlp(Xs, y, mlp_cfg)
     persist.save_mlp(os.path.join(out_dir, "model_mlp_tpu"), fitted)
@@ -833,10 +833,10 @@ def run_cv(
         except ImportError:
             pass
 
-    # ... and on the production TPU model under its own name
-    from stutter_tpu.importance import permutation_importance_tpu
+    # ... and on the production jitted model under its own name
+    from stutter_tpu.importance import permutation_importance_jax
 
-    imp_mean, imp_std = permutation_importance_tpu(fitted, Xs, y, n_repeats=10, seed=cfg.train.seed)
+    imp_mean, imp_std = permutation_importance_jax(fitted, Xs, y, n_repeats=10, seed=cfg.train.seed)
     write_importance(
         "permutation_importance_mlp_tpu.csv", imp_mean, imp_std,
         "Permutation importance (MLP-TPU)",
@@ -844,7 +844,7 @@ def run_cv(
 
     # Single-split confusion matrices (ref: main.py:992-1006)
     tr, te = stratified_train_test_split(y, cfg.train.test_size, cfg.train.seed)
-    single = {"MLP-TPU": _TpuMLPAdapter(mlp_cfg)}
+    single = {"MLP-TPU": _JaxMLPAdapter(mlp_cfg)}
     if include_host:
         try:
             from stutter_tpu.models.host_baselines import reference_model_zoo

@@ -5,7 +5,7 @@ main.py:905-913) weights its members uniformly and UNDERPERFORMS its best
 single model (65.3 vs 67.4 % CV).  Weighting fixes that: a coarse simplex
 search over member weights, fit per held-out fold on the OTHER folds' OOF
 predictions only (nested protocol — no weight is ever fit on the fold it
-scores), lifts the TPU head trio (mixup CNN + CNN-BiLSTM + MLP) to 74.0 %
+scores), lifts the jitted head trio (mixup CNN + CNN-BiLSTM + MLP) to 74.0 %
 5-fold CV on the reference corpus (uniform: 73.5; best single: 70.5 —
 measured, docs/experiments_r2_stack.json).
 """
@@ -86,7 +86,7 @@ def bootstrap_vote_band(
     seed: int = 0,
 ) -> dict:
     """Sampling-uncertainty band for the headline nested-vote CV accuracy
-    (VERDICT r4 Weak #5: publish '76.2 ± x', not adjectives).
+    (publish '76.2 ± x', not adjectives).
 
     Each bootstrap replicate resamples rows WITH replacement within every
     fold (fold structure preserved), re-runs the full nested weight search on

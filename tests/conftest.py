@@ -1,8 +1,9 @@
 """Test fixtures.
 
-Tests run on CPU with 8 virtual devices so multi-chip sharding paths
-(shard_map/pjit over a Mesh) are exercised without TPU hardware — the
-JAX-idiomatic fake-multichip fixture (SURVEY.md §4).
+Tests run on CPU with 8 virtual devices so multi-device sharding paths
+(shard_map/pjit over a Mesh) are exercised without a GPU — the
+JAX-idiomatic fake-multichip fixture (SURVEY.md §4).  Subprocesses inherit
+JAX_PLATFORMS=cpu, which the entry points require before they run on the CPU.
 """
 
 import os
@@ -12,11 +13,12 @@ flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
 
-# The env var alone is not honored in every environment (platform plugins can
-# override); force it through the config API before any computation runs.
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+# Entry points called in-process (cli.main) point the persistent compilation
+# cache at the checkout; test workers must not share or write it.
+jax.config.update("jax_enable_compilation_cache", False)
 
 import glob
 from pathlib import Path

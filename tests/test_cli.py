@@ -3,13 +3,16 @@
 import json
 import subprocess
 import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def test_help():
     out = subprocess.run(
         [sys.executable, "-m", "stutter_tpu", "--help"],
         capture_output=True, text=True, env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
-        cwd="/root/repo",
+        cwd=REPO,
     )
     assert out.returncode == 0
     for cmd in ("preprocess", "extract", "train", "train-ab", "train-seq", "predict", "stream", "bench"):
@@ -20,7 +23,7 @@ def test_unknown_command_fails():
     out = subprocess.run(
         [sys.executable, "-m", "stutter_tpu", "nope"],
         capture_output=True, text=True, env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
-        cwd="/root/repo",
+        cwd=REPO,
     )
     assert out.returncode != 0
 

@@ -11,7 +11,7 @@ Agreement is bounded by the UPSTREAM decoder delta (mpg123 vs the author's
 librosa/audioread stack, ~1% relative on features — docs/parity raw parade)
 amplified through the gate's slope-10 sigmoid, plus the goldens' 16-bit
 quantization; the corpus-wide distribution lives in docs/parity/README.md
-(produced by docs/parity/run_denoise_parade.py on TPU; these tests run the
+(produced by docs/parity/run_denoise_parade.py; these tests run the
 same chain on the CPU fixture).
 """
 

@@ -68,7 +68,7 @@ def test_nested_vote_weights_never_fit_on_scored_fold(rng):
 def test_bootstrap_vote_band_matches_point_and_spreads(rng):
     """bootstrap_vote_band's point estimate equals the reference-protocol
     (per-fold mean) accuracy of nested_weighted_vote's predictions, and the
-    bootstrap spread is a real, nonzero band (VERDICT r4 Weak #5)."""
+    bootstrap spread is a real, nonzero band."""
     from stutter_tpu.train.ensemble import bootstrap_vote_band, nested_weighted_vote
 
     n, C = 120, 3

@@ -1,6 +1,6 @@
 """JAX batched frontend: golden parity + masked-batching correctness.
 
-The batched TPU path must equal the per-clip NumPy oracle (which itself
+The batched jitted path must equal the per-clip NumPy oracle (which itself
 matches the reference cache at <2e-6 MAE over all 888 clips)."""
 
 import numpy as np
@@ -11,7 +11,11 @@ import jax.numpy as jnp
 from stutter_tpu.io.wav import load_mono
 from stutter_tpu.oracle import frontend as OF
 from stutter_tpu.ops.delta import sg_delta
-from stutter_tpu.ops.frontend import extract_features_149_batch, extract_features_149_numpy
+from stutter_tpu.ops.frontend import (
+    DEFAULT_BUCKETS,
+    extract_features_149_batch,
+    extract_features_149_numpy,
+)
 from stutter_tpu.ops.masked import frame_mask, masked_median
 from stutter_tpu.ops.spectral import frame, power_spectrogram
 
@@ -40,8 +44,64 @@ def test_power_spectrogram_both_methods(rng):
     for method in ("fft", "matmul"):
         got = np.asarray(power_spectrogram(jnp.asarray(y)[None, :], 2048, 512, method=method))[0]
         assert np.abs(got - ref).max() < 1e-2  # absolute on O(1e4) values
-        # matmul runs at Precision.HIGH (bf16x3 on TPU); ~1e-6 relative
+        # matmul runs at Precision.HIGH; ~1e-6 relative
         assert np.abs(got - ref).max() / max(ref.max(), 1) < 5e-6
+
+
+def test_chunked_spectrogram_matches_fft(rng):
+    """Shared-chunk DFT + frequency-domain Hann == windowed rfft."""
+    audio = jnp.asarray(rng.randn(3, 24576).astype(np.float32) * 0.3)
+    for n_fft, hop in ((2048, 512), (512, 256)):
+        p_fft = np.asarray(power_spectrogram(audio, n_fft, hop, method="fft"))
+        p_ch = np.asarray(power_spectrogram(audio, n_fft, hop, method="chunked"))
+        assert np.abs(p_ch - p_fft).max() / p_fft.max() < 1e-5
+
+
+def _tonal_clip(rng, n, sr=16000):
+    """Harmonic tone with a random detuning plus noise: real piptrack peaks,
+    so the tuning estimate and chroma are exercised, not just silence."""
+    t = np.arange(n) / sr
+    f0 = rng.uniform(110.0, 440.0) * 2 ** (rng.uniform(-0.45, 0.45) / 12)
+    y = sum(0.4 / k * np.sin(2 * np.pi * k * f0 * t) for k in range(1, 5))
+    return (y + 0.03 * rng.randn(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "bucket,batch",
+    [(b, 2) for b in DEFAULT_BUCKETS] + [(DEFAULT_BUCKETS[1], 3)],
+    ids=["1.5s", "3.1s", "6.1s", "10.2s", "3.1s-odd-batch"],
+)
+def test_xla_frontend_matches_oracle(bucket, batch):
+    """One padded batch per bucket (uneven lengths, odd batch size) against
+    the per-clip oracle: MFCC/delta stats, the tuning bin of tonal clips and
+    the chroma stats each agree."""
+    from stutter_tpu.ops.chroma import estimate_tuning_bin
+
+    rng = np.random.RandomState(bucket + batch)
+    lo = 0 if bucket == DEFAULT_BUCKETS[0] else DEFAULT_BUCKETS[
+        DEFAULT_BUCKETS.index(bucket) - 1
+    ]
+    lens = rng.randint(max(lo, 7200) + 1, bucket + 1, batch)
+    clips = [_tonal_clip(rng, n) for n in lens]
+    audio = np.zeros((batch, bucket), np.float32)
+    for i, y in enumerate(clips):
+        audio[i, : len(y)] = y
+    lengths = jnp.asarray(lens.astype(np.int32))
+    feats = np.asarray(extract_features_149_batch(jnp.asarray(audio), lengths))
+    assert feats.shape == (batch, 149)
+
+    power = power_spectrogram(jnp.asarray(audio), 2048, 512)
+    mask = frame_mask(lengths, 512, power.shape[1])
+    power = jnp.where(mask[:, :, None], power, 0.0)
+    tb = np.asarray(estimate_tuning_bin(power, 16000, 2048))
+    edges = np.linspace(-0.5, 0.5, 101)
+    for i, y in enumerate(clips):
+        ref = OF.extract_features(y, 16000, variant=149)
+        assert np.abs(feats[i, :120] - ref[:120]).mean() < 1e-4  # MFCC/deltas
+        t_o = OF.estimate_tuning_from_power(np.abs(OF.stft(y)) ** 2, 16000, 2048)
+        assert abs(edges[tb[i]] - t_o) < 1e-9
+        assert np.abs(feats[i, 120:144] - ref[120:144]).max() < 1e-4  # chroma
+        assert np.abs(feats[i] - ref).mean() < 1e-4
 
 
 def test_sg_delta_matches_scipy(rng):

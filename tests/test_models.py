@@ -186,7 +186,7 @@ def test_seq_augmentation_learns_and_masks(rng):
 
 
 def test_seq_grid_trainer_matches_serial_quality(rng):
-    """train_seq_grid (folds x seeds in ONE jit, VERDICT r2 Weak #3) learns
+    """train_seq_grid (folds x seeds in ONE jit) learns
     the same separable problem the serial trainer does, per grid entry, and
     cross_validate_seq's grid path produces normalized OOF probabilities."""
     import jax.numpy as jnp
@@ -318,8 +318,8 @@ def test_default_train_cfg_recipes():
         assert tc.epochs == 80 and tc.batch_size == 64
 
 
-def test_seq_grid_soft_targets_drive_the_loss(rng):
-    """Distillation knob (VERDICT r4 Next #5): y_soft probability targets
+def test_seq_grid_soft_targets_drive_the_loss():
+    """Distillation knob: y_soft probability targets
     replace the one-hot labels in train_seq_grid — training on deliberately
     class-swapped soft targets must make the model learn the SWAPPED mapping,
     proving the soft targets (not y) drive the loss."""
@@ -332,12 +332,15 @@ def test_seq_grid_soft_targets_drive_the_loss(rng):
         train_seq_grid,
     )
 
+    # local seeded data: the session rng's state depends on which tests ran
+    # before this one in the file
+    rng = np.random.RandomState(0)
     n, T, D = 64, 12, 6
     y = rng.randint(0, 2, n)
     X = (rng.randn(n, T, D) * 0.1).astype(np.float32) + y[:, None, None] * 0.8
     nv = np.full(n, T, np.int32)
     y_soft = np.eye(2, dtype=np.float32)[1 - y]  # swapped classes
-    cfg = SeqTrainConfig(epochs=12, batch_size=16)
+    cfg = SeqTrainConfig(epochs=30, batch_size=16)
     kw = dict(
         init_fn=init_cnn, apply_fn=apply_cnn,
         init_items=(("channels", (8,)), ("n_classes", 2), ("n_mels", D)),

@@ -70,7 +70,7 @@ def test_hf_ratio_close_to_unpadded(golden_subset):
 
 
 def test_permutation_importance_finds_signal(rng):
-    from stutter_tpu.importance import permutation_importance_tpu
+    from stutter_tpu.importance import permutation_importance_jax
     from stutter_tpu.train.trainer import MLPTrainConfig, fit_mlp
 
     from stutter_tpu.models.scaler import StandardScaler
@@ -83,7 +83,7 @@ def test_permutation_importance_finds_signal(rng):
     fitted = fit_mlp(X, y, MLPTrainConfig(hidden=(16,), epochs=300, n_seeds=2, n_classes=2,
                                           dropout=0.0, label_smoothing=0.0))
     assert (fitted.predict(X) == y).mean() > 0.9
-    mean, std = permutation_importance_tpu(fitted, X, y, n_repeats=5, seed=0)
+    mean, std = permutation_importance_jax(fitted, X, y, n_repeats=5, seed=0)
     assert mean.argmax() == 2
     assert mean[2] > 0.2
 

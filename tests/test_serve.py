@@ -133,7 +133,7 @@ def test_upload_cap_413(server, rng):
 def test_concurrent_predict_and_stream(server, rng):
     """Concurrent /predict (mixed denoise flags) + /stream must not cross-
     contaminate: per-request flags are passed per call, never stored on the
-    shared Predictor (VERDICT r1 Weak #9)."""
+    shared Predictor."""
     clip = _wav_bytes((rng.randn(16000) * 0.2).astype(np.float32))
     long_clip = _wav_bytes((rng.randn(16000 * 8) * 0.2).astype(np.float32))
     results, errors = {}, []
@@ -165,7 +165,7 @@ def test_concurrent_predict_and_stream(server, rng):
 
 def test_predict_not_blocked_by_stream(rng):
     """An in-flight multi-second /stream must not block /predict: streams take
-    a dedicated lock, predicts take per-model locks (VERDICT r2 Weak #4)."""
+    a dedicated lock, predicts take per-model locks."""
     import time
 
     X = rng.randn(60, 149).astype(np.float32)

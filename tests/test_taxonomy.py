@@ -1,4 +1,4 @@
-"""5-class dysfluency taxonomy wiring (BASELINE config #3, VERDICT r1 Next #7)."""
+"""5-class dysfluency taxonomy wiring (BASELINE config #3)."""
 
 import os
 

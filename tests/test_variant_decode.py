@@ -1,7 +1,6 @@
 """Variant-aware cache namespacing + pluggable decoder hook.
 
-Covers VERDICT r1 items: the 149/334 cache-clobbering bug (Weak #1 / Next #2)
-and the mp3 decode story (Missing #4 / Next #10).
+Covers the 149/334 cache-clobbering bug and the mp3 decode story.
 """
 
 import os
